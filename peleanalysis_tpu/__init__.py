@@ -1,4 +1,4 @@
-"""peleanalysis-tpu: TPU-native AMR post-processing framework with the
+"""peleanalysis-tpu: a JAX AMR post-processing framework with the
 capabilities of AMReX-Combustion/PeleAnalysis (see README.md).
 
 Public API: the two in-memory AMR models, the I/O layer, and the engines.

@@ -1,6 +1,6 @@
 """Integer index-space boxes and box arrays (the AMR grid skeleton).
 
-TPU-native re-design of the AMReX ``Box`` / ``BoxArray`` concepts used
+JAX re-design of the AMReX ``Box`` / ``BoxArray`` concepts used
 throughout the reference (e.g. /root/reference/Src/grad.cpp:151-164).  Unlike
 the reference, boxes here are plain numpy integer arrays: all device-side
 structures are *batched* (one padded array per level, see

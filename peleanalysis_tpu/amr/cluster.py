@@ -3,7 +3,7 @@
 The dense canonical model (amr/dense.py) materializes each level's union
 BOUNDING BOX.  On a production plotfile whose finest level covers a few
 percent of the domain in scattered regions, that is orders of magnitude more
-HBM than the valid cells (the r1 verdict's top gap).  Tools that support it
+device memory than the valid cells.  Tools that support it
 split such a level into CLUSTERS — connected components of the BoxArray
 (boxes within an interaction distance of 2 cells, the ghost-fill + dual-cell
 influence radius) greedily merged while the cluster bounding box stays
@@ -11,7 +11,7 @@ reasonably full — and process one dense patch per cluster.
 
 The reference has no analog (each MPI rank holds only its own boxes —
 memory scales with valid cells by construction); this restores that scaling
-property for the dense TPU layout.
+property for the dense device layout.
 """
 from __future__ import annotations
 

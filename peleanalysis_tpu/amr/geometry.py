@@ -1,6 +1,6 @@
 """Problem-domain geometry: physical extents, periodicity, cell sizes.
 
-TPU-native analog of AMReX ``Geometry`` as used by the reference tools
+JAX analog of AMReX ``Geometry`` as used by the reference tools
 (e.g. /root/reference/Src/grad.cpp:151-159: RealBox + periodicity + coord).
 """
 from __future__ import annotations

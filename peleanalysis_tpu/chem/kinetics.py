@@ -1,10 +1,13 @@
 """Gas-phase chemical kinetics: CHEMKIN mechanism parsing + forward/reverse
 reaction-rate evaluation — the Fuego ``CKPX``/``CKKFKR`` analog behind the
 reference's plotQPD (/root/reference/Src/ModelSpecificAnalysis/plotQPD.cpp:
-149-156), re-designed for TPU: the per-cell concentration products and Gibbs
-sums are log-space stoichiometric MATMULS ([Ncells, nspec] @ [nspec, nrxn]),
-so the whole Qf/Qr field evaluation is a handful of MXU contractions plus
-elementwise transcendentals instead of the reference's per-cell scalar loop.
+149-156), re-designed for array hardware: the per-cell concentration
+products and Gibbs sums are log-space stoichiometric MATMULS
+([Ncells, nspec] @ [nspec, nrxn]), so the whole Qf/Qr field evaluation is a
+handful of matrix contractions plus elementwise transcendentals instead of
+the reference's per-cell scalar loop.  On the jax path every contraction
+asks for ``Precision.HIGHEST`` (a float32 matmul may otherwise run in TF32
+on the GPU's tensor cores, three digits of a rate exponent).
 
 Supported mechanism features (CHEMKIN-II format):
   * ELEMENTS / SPECIES / THERMO (embedded NASA7) / REACTIONS blocks
@@ -33,6 +36,16 @@ from .mechanism import Nasa7, R_UNIV, molecular_weight
 R_CAL = 1.98720425864083     # cal/(mol K) — Ea/(R T) exponent
 P_ATM = 1.01325e6            # dyn/cm^2
 _LN10 = float(np.log(10.0))
+
+
+def _matmul(a, b):
+    """``a @ b``; with a jax operand (``xp=jax.numpy`` or a tracer inside
+    jit) at full float32 precision, never TF32."""
+    if isinstance(a, np.ndarray) and isinstance(b, np.ndarray):
+        return a @ b
+    import jax
+    import jax.numpy as jnp
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
 @dataclasses.dataclass
@@ -445,7 +458,7 @@ class Kinetics:
         if np.isnan(self.W).any():
             bad = [s for s, w in zip(self.species, self.W) if np.isnan(w)]
             raise ValueError(f"cannot derive molecular weights for {bad}")
-        Wbar = X @ xp.asarray(self.W)
+        Wbar = _matmul(X, xp.asarray(self.W))
         return rho_cgs * R_UNIV * T / xp.maximum(Wbar, 1e-300)
 
     def concentrations(self, P, T, X, xp=np):
@@ -480,14 +493,14 @@ class Kinetics:
         lnT = xp.log(T)
         invT = 1.0 / T
         lnC = xp.log(xp.maximum(C, cfloor))
-        # forward rate constants + concentration products (MXU matmuls)
+        # forward rate constants + concentration products (matmuls)
         lnkf = (xp.asarray(self.lnA) + xp.asarray(self.beta) * lnT[..., None]
                 - xp.asarray(self.EaR) * invT[..., None])
-        ln_pf = lnC @ xp.asarray(self.nuf.T)
-        ln_pr = lnC @ xp.asarray(self.nur.T)
+        ln_pf = _matmul(lnC, xp.asarray(self.nuf.T))
+        ln_pr = _matmul(lnC, xp.asarray(self.nur.T))
         # equilibrium: ln Kc = −Σν g/RT + Σν ln(P_atm/(R T))
         g = self._g_RT(T, xp)
-        lnKp = -(g @ xp.asarray(self.nu_net.T))
+        lnKp = -_matmul(g, xp.asarray(self.nu_net.T))
         lnKc = lnKp + xp.asarray(self.nu_sum) * (
             np.log(P_ATM / R_UNIV) - lnT)[..., None]
         lnkr_eq = lnkf - lnKc
@@ -503,8 +516,10 @@ class Kinetics:
         Qf = xp.exp(lnkf + ln_pf) * xp.asarray(self.kf_sign)
         Qr = xp.exp(lnkr + ln_pr) * xp.asarray(self.rev_mask) * qr_sign
         # third-body concentration (one more matmul)
-        ctb = C @ xp.asarray(self.alpha.T)
-        mult = 1.0 + xp.asarray(self.tb_mask) * (ctb - 1.0)
+        ctb = _matmul(C, xp.asarray(self.alpha.T))
+        # select, not 1 + mask*(ctb - 1): in float32 that sum cancels, and
+        # a [M] ~ 1e-5 mol/cm^3 keeps only ~2 digits
+        mult = xp.where(xp.asarray(self.tb_mask) > 0, ctb, 1.0)
         # falloff blend: k_eff = k_inf · Pr/(1+Pr) · F
         if self.fo_mask.any():
             lnk0 = (xp.asarray(self.low_lnA)

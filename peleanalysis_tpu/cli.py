@@ -84,6 +84,9 @@ def main(argv=None, session=None) -> int:
         print("tools:", " ".join(sorted(TOOLS)), "pipeline serve send")
         return 0
     tool = argv[0]
+    if tool in ("pipeline", "serve") or tool in TOOLS:
+        from .config import enable_compile_cache
+        enable_compile_cache()
     if tool == "pipeline":
         # device-resident tool chaining: stages separated by "--" share one
         # Session (plotfile loads, fills, compiled engines, and intermediate
@@ -146,29 +149,14 @@ def main(argv=None, session=None) -> int:
               " pipeline serve send")
         return 2
     mod = importlib.import_module(TOOLS[tool], package=__package__)
-    # persistent XLA compile cache: the big extraction graphs take minutes
-    # to compile on TPU; cache across CLI invocations (the reference's
-    # ahead-of-time C++ build has no per-run compile cost to match).
-    # PELE_JAX_CACHE=<dir> overrides; PELE_JAX_CACHE=0 disables.
-    cache = os.environ.get("PELE_JAX_CACHE",
-                           os.path.expanduser("~/.cache/peleanalysis_tpu"))
-    if cache and cache != "0":
-        try:
-            import jax
-
-            jax.config.update("jax_compilation_cache_dir", cache)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                              1.0)
-        except Exception:
-            pass
     args = parse_argv(argv[1:])
     args.setdefault("_tool", [tool])
     if session is not None:
         args["_session"] = session
     # Global dtype= key: float64 gives the reference's double-precision
     # compute end-to-end on every tool (grad/curvature/isosurface/stream
-    # included), not just the stats tools' accumulators.  f64 is emulated
-    # (slow) on TPU — the default stays float32.
+    # included), not just the stats tools' accumulators.  The default stays
+    # float32.
     dt = args.get("dtype")
     if dt:
         import jax
@@ -195,7 +183,7 @@ def main(argv=None, session=None) -> int:
         config.set_compute_dtype(jnp.float32)
     from .parmparse import _ACTIVE
     _ACTIVE.clear()
-    # PELE_PROFILE=<dir>: wrap the tool in a jax.profiler trace (the TPU
+    # PELE_PROFILE=<dir>: wrap the tool in a jax.profiler trace (the
     # analog of the reference's BL_PROFILE / TinyProfiler regions, SURVEY §5)
     prof_dir = os.environ.get("PELE_PROFILE", "")
     if prof_dir:

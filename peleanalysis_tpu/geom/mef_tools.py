@@ -207,7 +207,7 @@ def bin_mef(mef: MEF, bin_comps: Sequence[str], bin_min: Sequence[float],
                                                                     "gt")))
     ndim = mef.ndim
     ci = [mef.names.index(n) for n in bin_comps]
-    # r5 (VERDICT r4 missing #3): iterative, mostly-clip-free binning.  The
+    # iterative, mostly-clip-free binning.  The
     # old recursive form clipped the WHOLE fragment set against every bin of
     # every coordinate (O(prod(nBins) x N) clip work, 30M-node-scale hostile,
     # Src/binMEF.cpp:419-455 does the same per-fragment).  Here each pass

@@ -1,5 +1,5 @@
 // Quadric-error-metric mesh decimation (Garland–Heckbert greedy edge
-// collapse) — the TPU-framework replacement for the reference's vendored
+// collapse) — the framework's replacement for the reference's vendored
 // qslim/mixkit (decimateMEF, /root/reference/Src/decimateMEF.cpp +
 // Tools/qslim; config surface per Tools/qslim/qslim.h:29-46: face_target,
 // boundary_weight).  Written from the published algorithm (Garland &

@@ -1,5 +1,5 @@
 // Parallel VisMF/FAB reader — the native data-loader component of the
-// framework runtime (TPU-native analog of the reference's C++ AmrData
+// framework runtime (analog of the reference's C++ AmrData
 // demand-paged FAB reads, /root/reference/Src/ usage of amrex::AmrData /
 // VisMF::Read).  Reads many FAB records concurrently with a std::thread
 // pool, converting on-disk Fortran-ordered (x fastest, comp outermost)

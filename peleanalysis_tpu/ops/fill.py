@@ -1,4 +1,4 @@
-"""Ghost-fill engine: the TPU-native FillPatch.
+"""Ghost-fill engine: the JAX FillPatch.
 
 Replaces the reference's ``FillBoundary`` / ``FillPatchSingleLevel`` /
 ``FillPatchTwoLevels`` / ``PCInterp`` stack (usage at
@@ -7,8 +7,8 @@ Src/stream.cpp:839-874).
 
 Design: all irregular index arithmetic happens **once on host** (numpy) and is
 baked into per-(BoxArray, ngrow, BC) gather plans; the device-side fill is then
-a single fused gather — `vals = data_flat[src]` — which XLA pipelines straight
-from HBM with no data-dependent control flow.  Same-level halo exchange,
+a single fused gather — `vals = data_flat[src]` — which XLA streams straight
+from device memory with no data-dependent control flow.  Same-level halo exchange,
 periodic wrap, physical BCs (first-order extrap / reflect even / reflect odd),
 and coarse-fine interpolation all collapse into that one gather (+ a select
 against the coarse gather and a sign multiply).

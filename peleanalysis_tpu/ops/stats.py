@@ -3,11 +3,12 @@ reference's per-cell binning loops (+MPI reductions) in conditionalMean /
 jpdf / integral (/root/reference/Src/conditionalMean.cpp:260-303,
 Src/jpdf.cpp:427-537).
 
-TPU design note: scatter-adds (`.at[].add`) serialize on collisions and ran
-~6 M adds/s; histograms here are instead **one-hot contractions on the MXU**
-— per chunk of C cells, a [nbins, C] @ [C, ...] matmul accumulates counts /
-sums / joint bins (the 2-D pdf is literally onehot1.T @ (w * onehot2)).
-That turns 25M-cell binning from seconds into milliseconds.
+Histograms here are **one-hot contractions** instead of scatter-adds
+(`.at[].add`): per chunk of C cells, a [nbins, C] @ [C, ...] matmul
+accumulates counts / sums / joint bins (the 2-D pdf is literally
+onehot1.T @ (w * onehot2)).  Every contraction asks for
+``Precision.HIGHEST``: a float32 matmul may otherwise run in TF32 on the
+GPU's tensor cores, which keeps about three digits of the moments.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import jax
 import jax.numpy as jnp
 
 _CHUNK = 1 << 16
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _pad_flat(x: jnp.ndarray, fill) -> Tuple[jnp.ndarray, int]:
@@ -42,7 +44,7 @@ def binned_stats(bin_vals: jnp.ndarray, avg_vals: jnp.ndarray,
 
     ``shift`` ([ncomp], optional): per-component offsets subtracted from the
     values before the sum/sumsq contractions.  The reference accumulates in
-    double (conditionalMean.cpp uses Real=double); TPU compute is float32, so
+    double (conditionalMean.cpp uses Real=double); device compute is float32, so
     raw sumsq of a field like temp (~2000 K) keeps only ~7 digits and
     ``sumsq/hits - mean^2`` cancels catastrophically.  With shift ≈ mean the
     shifted moments are small-magnitude and the variance survives float32;
@@ -78,12 +80,12 @@ def binned_stats(bin_vals: jnp.ndarray, avg_vals: jnp.ndarray,
         vs = vc - sh[None, :]
         onehot = (ic[:, None] == bins[None, :]).astype(dt)   # [C, nbins]
         oww = onehot * wc[:, None]
-        # ONE [nbins,C]@[C,1+2k] matmul for hits+sums+sumsq (r5: the three
-        # separate contractions each re-read the 16 MB onehot from HBM; a
-        # fused RHS reads it once and keeps the MXU fed with a fatter N)
+        # ONE [nbins,C]@[C,1+2k] matmul for hits+sums+sumsq: the onehot is
+        # read from device memory once instead of three times
         rhs = jnp.concatenate(
             [jnp.ones((vs.shape[0], 1), dt), vs, vs * vs], axis=1)
-        out = jnp.einsum("cb,cr->br", oww, rhs, preferred_element_type=dt)
+        out = jnp.einsum("cb,cr->br", oww, rhs, preferred_element_type=dt,
+                         precision=_HIGHEST)
         hits = hits + out[:, 0]
         sums = sums + out[:, 1:1 + ncomp]
         sumsq = sumsq + out[:, 1 + ncomp:]
@@ -120,8 +122,8 @@ def reconstruct_moments(hits, sums_s, sumsq_s, shift):
     ones: sum = sum' + c*hits; sumsq = sumsq' + 2c*sum' + c^2*hits.  Done in
     float64 so the c^2*hits term cancels exactly when a consumer later forms
     ``var = sumsq/hits - mean^2`` (the reference's double-accumulation
-    semantics, conditionalMean.cpp:260-303, restored without paying emulated
-    f64 on the MXU).  hits: [nbins]; sums_s/sumsq_s: [nbins, ncomp];
+    semantics, conditionalMean.cpp:260-303, restored without float64 device
+    contractions).  hits: [nbins]; sums_s/sumsq_s: [nbins, ncomp];
     shift: [ncomp].  Returns float64 (sums, sumsq)."""
     import numpy as np
     h = np.asarray(hits, np.float64)
@@ -141,7 +143,7 @@ def joint_pdf(v1: jnp.ndarray, v2: jnp.ndarray, vol: jnp.ndarray,
               shift1=None, shift2=None):
     """2-D volume-weighted joint histogram (jpdf semantics: out-of-range
     values clamp into edge bins, jpdf.cpp:489-496) as chunked one-hot
-    matmuls: bin += onehot1.T @ (w * onehot2) — pure MXU work.
+    matmuls: bin += onehot1.T @ (w * onehot2).
     Returns (bin, binX1, binX2) each [nbins, nbins] row-major [v1, v2].
     With shift1/shift2 the X1/X2 accumulators hold (v - shift) sums; the
     caller reconstructs binX = binX' + shift*bin on host (float32-safe
@@ -168,11 +170,11 @@ def joint_pdf(v1: jnp.ndarray, v2: jnp.ndarray, vol: jnp.ndarray,
         o1 = (a1[:, None] == bins[None, :]).astype(dt)      # [C, n]
         o2 = (a2[:, None] == bins[None, :]).astype(dt)
         o1w = o1 * ww[:, None]
-        # ONE batched [3] x [n,C]@[C,n] dot (r5): the three separate einsums
-        # each re-read o2 from HBM; batching reads it once per chunk
+        # ONE batched [3] x [n,C]@[C,n] dot: o2 is read once per chunk
         lhs = jnp.stack([o1w, o1w * f1[:, None], o1w * f2[:, None]])
         acc = acc + jnp.einsum("xcb,cd->xbd", lhs, o2,
-                               preferred_element_type=dt)
+                               preferred_element_type=dt,
+                               precision=_HIGHEST)
         return acc, None
 
     init = jnp.zeros((3, nbins, nbins), dt)
@@ -185,11 +187,10 @@ def joint_pdf_multi(vals: jnp.ndarray, vol, mask: jnp.ndarray,
                     lo: jnp.ndarray, hi: jnp.ndarray, nbins: int,
                     pairs: Tuple[Tuple[int, int], ...],
                     shifts: Optional[jnp.ndarray] = None):
-    """All-pairs joint histograms sharing per-variable one-hots (r5,
-    VERDICT r4 #6 — the jpdf tool computes n(n-1)/2 pairs over the SAME
-    cells, jpdf.cpp:427-525; building each variable's one-hot once and
+    """All-pairs joint histograms sharing per-variable one-hots (the jpdf
+    tool computes n(n-1)/2 pairs over the SAME cells, jpdf.cpp:427-525; building each variable's one-hot once and
     contracting all pairs in one batched dot amortizes the one-hot
-    construction/HBM traffic nv(nv-1)/2-fold and replaces per-pair
+    construction/memory traffic nv(nv-1)/2-fold and replaces per-pair
     dispatch+fetch with a single call).
 
     vals: [nv, *shape]; vol: scalar or [*shape]; mask: bool [*shape];
@@ -215,9 +216,8 @@ def joint_pdf_multi(vals: jnp.ndarray, vol, mask: jnp.ndarray,
         .astype(dt).reshape(-1)
     fs = flat - sh[:, None]
 
-    # measured (r5, v5e): 16k chunks beat 64k (49.1% vs 42.8% of f32 MXU
-    # peak at 3 pairs) — the smaller one-hot slabs stay resident across
-    # the per-pair dots
+    # 16k-cell chunks: the smaller one-hot slabs are reused across the
+    # per-pair dots
     chunk = 16384
     n = w.size
     m = ((n + chunk - 1) // chunk) * chunk
@@ -233,15 +233,16 @@ def joint_pdf_multi(vals: jnp.ndarray, vol, mask: jnp.ndarray,
         ic, wc, fc = args                                    # [nv,C],[C],[nv,C]
         oh = (ic[:, :, None] == bins[None, None, :]).astype(dt)  # [nv,C,n]
         ow = oh * wc[None, :, None]
-        # per-pair batched-3 dots reusing the shared one-hots (measured r5:
-        # 2.3x faster than one [3,P,C,n]-stacked einsum, which materializes
-        # the stack through HBM; the loop is static — P dots fused by XLA)
+        # per-pair batched-3 dots reusing the shared one-hots (one
+        # [3,P,C,n]-stacked einsum would materialize the stack in device
+        # memory; the loop is static — P dots fused by XLA)
         outs = []
         for i, j in pairs:
             lhs = jnp.stack([ow[i], ow[i] * fc[i][:, None],
                              ow[i] * fc[j][:, None]])        # [3,C,n]
             outs.append(jnp.einsum("xcb,cd->xbd", lhs, oh[j],
-                                   preferred_element_type=dt))
+                                   preferred_element_type=dt,
+                                   precision=_HIGHEST))
         acc = acc + jnp.stack(outs, axis=1)                  # [3,P,n,n]
         return acc, None
 

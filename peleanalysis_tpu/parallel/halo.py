@@ -2,7 +2,7 @@
 
 GSPMD handles the dense model's sharded slicing automatically
 (parallel/dense_shard.py), but for production multi-chip stencils an
-explicit neighbor exchange maps 1:1 onto ICI links: each shard sends its
+explicit neighbor exchange is one collective per side: each shard sends its
 boundary planes to its ring neighbors with collective-permutes — the
 FillBoundary analog (SURVEY.md §2.7 item 2) with no compiler guesswork.
 
@@ -19,7 +19,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 def halo_exchange(local: jnp.ndarray, g: int, axis_name: str,

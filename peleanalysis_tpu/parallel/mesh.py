@@ -4,7 +4,8 @@ The reference distributes boxes over MPI ranks via DistributionMapping and
 communicates with MPI point-to-point/collectives (SURVEY.md §2.7).  Here the
 box axis of every batched level array is sharded over a 1-D ``jax.sharding``
 mesh; the ghost-fill gather reads across box shards, and XLA lowers that to
-all-gather/collective-permute over ICI — no hand-written communication.
+all-gather/collective-permute between devices — no hand-written
+communication.
 
 Levels whose box count is not divisible by the mesh size are padded with
 clone boxes (gathers never *write*, so padded boxes are inert; outputs are

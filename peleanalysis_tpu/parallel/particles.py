@@ -1,17 +1,17 @@
-"""TPU-native particle migration — the Redistribute analog for partStream.
+"""Multi-device particle migration — the Redistribute analog for partStream.
 
 The reference's StreamPC advances an AMReX ParticleContainer one RK step at
 a time and calls Redistribute() after every step so each particle always
 lives on the MPI rank owning its current grid patch
 (/root/reference/Src/StreamPC.cpp:86-141).  The single-chip engine here
 keeps every line resident instead (stream/trace.py) — fine until lines plus
-grown fields exceed one chip's HBM.
+grown fields exceed one device's memory.
 
-This module is the multi-chip path.  TPU-first design, not an MPI
-translation:
+This module is the multi-device path, designed for XLA rather than
+translated from MPI:
 
   * the level's grown velocity field is split into X slabs, one per device
-    of a 1-D ``jax.sharding.Mesh``; each device's HBM holds ONLY its slab
+    of a 1-D ``jax.sharding.Mesh``; each device's memory holds ONLY its slab
     plus a halo ring wide enough for one RK4 step (the global array is
     staged through host RAM, never through a single device)
   * particles live in fixed-capacity per-device slot buffers (static
@@ -20,7 +20,7 @@ translation:
   * after every RK4 step, movers are compacted to the front of fixed-size
     send buffers (argsort on a boolean — no dynamic shapes) and exchanged
     with ring neighbors by ``lax.ppermute`` inside a ``shard_map`` — the
-    Redistribute() analog riding ICI
+    Redistribute() analog
   * trajectories are NOT carried by the particles (the reference carries
     Nsteps*SPACEDIM reals per particle, StreamPC.cpp:14-35): each step the
     kernel logs (id, position) snapshots via the ``lax.scan`` outputs, and
@@ -45,7 +45,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 AXIS = "parts"
 

@@ -4,7 +4,7 @@ oracle).
 These mirror the reference's CPU numerics (centered-difference gradients on
 ghost-filled data, /root/reference/Src/grad.cpp:211-235) and serve two roles:
 the parity oracle for tests and the single-process CPU baseline that bench.py
-compares the TPU pipeline against.
+compares the device pipeline against.
 """
 from __future__ import annotations
 
@@ -105,3 +105,84 @@ def numpy_curvature(plans, prog_levels, dxs):
         Kg = num / normg[lev][:, 0] ** 4
         out.append((Km, Kg))
     return out
+
+
+def numpy_trace(field, plo, dxs, seeds, n_half, h):
+    """RK4 streamline march of stream/trace.py in float64 numpy: each stage
+    samples ``field`` [3, X, Y, Z] trilinearly on the cell-centred dual grid
+    (ntrpv: base = floor((x - plo)/dx - 0.5), clamped) and normalizes the
+    vector, so ``h`` is arclength.  Returns [n_half + 1, nseed, 3] for the
+    +direction march (station 0 at the seed)."""
+    field = np.asarray(field, np.float64)
+    plo = np.asarray(plo, np.float64)
+    dxs = np.asarray(dxs, np.float64)
+    pos = np.asarray(seeds, np.float64).copy()
+    out = [pos.copy()]
+
+    def unit(x):
+        xc = (x - plo) / dxs - 0.5
+        b = np.clip(np.floor(xc).astype(int), 0,
+                    np.array(field.shape[1:]) - 2)
+        t = np.clip(xc - b, 0, 1)
+        i, j, k = b[:, 0], b[:, 1], b[:, 2]
+        v = 0
+        for oi in (0, 1):
+            for oj in (0, 1):
+                for ok in (0, 1):
+                    w = (np.where(oi, t[:, 0], 1 - t[:, 0])
+                         * np.where(oj, t[:, 1], 1 - t[:, 1])
+                         * np.where(ok, t[:, 2], 1 - t[:, 2]))
+                    v = v + w[:, None] * field[:, i + oi, j + oj, k + ok].T
+        return v / np.maximum(np.linalg.norm(v, axis=1, keepdims=True),
+                              1e-300)
+
+    for _ in range(n_half):
+        k1 = unit(pos)
+        k2 = unit(pos + 0.5 * h * k1)
+        k3 = unit(pos + 0.5 * h * k2)
+        k4 = unit(pos + h * k3)
+        pos = pos + h / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+        out.append(pos.copy())
+    return np.stack(out)
+
+
+def numpy_binned_stats(bin_vals, avg_vals, weight, mask, bmin, bmax, nbins):
+    """``np.add.at`` oracle of ops.stats.binned_stats with conditionalMean
+    semantics (out-of-range cells dropped): bin_vals [*shape], avg_vals
+    [ncomp, *shape], weight scalar or [*shape], mask bool [*shape].
+    Returns float64 (hits [nbins], sums [nbins, ncomp], sumsq)."""
+    x = np.asarray(bin_vals, np.float64)
+    idx = np.floor((x - bmin) / (bmax - bmin) * nbins).astype(np.int64)
+    ok = np.asarray(mask, bool) & (idx >= 0) & (idx < nbins)
+    w = np.broadcast_to(np.asarray(weight, np.float64), x.shape)[ok]
+    i = idx[ok]
+    v = np.asarray(avg_vals, np.float64)[:, ok]
+    hits = np.zeros(nbins)
+    np.add.at(hits, i, w)
+    sums = np.zeros((nbins, v.shape[0]))
+    sumsq = np.zeros((nbins, v.shape[0]))
+    for k in range(v.shape[0]):
+        np.add.at(sums[:, k], i, w * v[k])
+        np.add.at(sumsq[:, k], i, w * v[k] ** 2)
+    return hits, sums, sumsq
+
+
+def numpy_joint_pdf(v1, v2, vol, mask, v1min, v1max, v2min, v2max, nbins):
+    """``np.add.at`` oracle of ops.stats.joint_pdf (jpdf semantics:
+    out-of-range values clamp into the edge bins).  Returns float64
+    (bin, binX1, binX2), each [nbins, nbins] indexed [v1, v2]."""
+    a = np.asarray(v1, np.float64)
+    b = np.asarray(v2, np.float64)
+    i1 = np.clip(np.floor((a - v1min) / (v1max - v1min) * nbins)
+                 .astype(np.int64), 0, nbins - 1)
+    i2 = np.clip(np.floor((b - v2min) / (v2max - v2min) * nbins)
+                 .astype(np.int64), 0, nbins - 1)
+    m = np.asarray(mask, bool)
+    w = np.broadcast_to(np.asarray(vol, np.float64), a.shape)[m]
+    flat = i1[m] * nbins + i2[m]
+    out = []
+    for val in (1.0, a[m], b[m]):
+        acc = np.zeros(nbins * nbins)
+        np.add.at(acc, flat, w * val)
+        out.append(acc.reshape(nbins, nbins))
+    return tuple(out)

@@ -3,9 +3,8 @@
 A reference tool is an AOT-compiled binary — per-invocation cost is ~zero
 (/root/reference/Src/GNUmakefile:14-40, one executable per analysis).  A
 Python CLI pays interpreter start + jax import + plotfile parse + trace-cache
-lookup on EVERY invocation (measured r3: a warm 4-tool chain at 32^3x3 spent
-~3 s in per-invocation overhead).  ``python -m peleanalysis_tpu serve``
-matches the AOT model the TPU way: one resident process keeps the XLA
+lookup on EVERY invocation.  ``python -m peleanalysis_tpu serve``
+matches the AOT model with one resident process that keeps the XLA
 client, the compiled engines, and a shared :class:`Session` (cached plotfile
 loads, device states, registered outputs) across commands.
 

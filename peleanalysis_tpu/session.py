@@ -2,8 +2,8 @@
 
 The reference chains its tools through files: each main() re-reads the
 plotfile, re-fills ghosts, and writes its whole output to disk
-(/root/reference/Src/GNUmakefile:14-40 — one executable per analysis).  On
-TPU the host<->device roundtrips dominate a chained run, so the ``pipeline``
+(PeleAnalysis Src/GNUmakefile:14-40 — one executable per analysis).  A
+file-chained run repeats every load, upload and fetch, so the ``pipeline``
 CLI mode (cli.py) threads one :class:`Session` through the tool mains:
 
   * plotfile loads are cached per (path, max_level, is_per, dtype) and

@@ -13,7 +13,7 @@ the accumulator one at a time with read-ahead (io/prefetch.py) — peak
 memory holds ~2 inputs plus the accumulator instead of the whole ensemble,
 and file i+1's host parse overlaps file i's device fills.  (The reference
 also loads one AmrData at a time, avgPlotfiles.cpp:118-160; here the
-prefetch overlap is the TPU-side addition.)
+prefetch overlap is the addition.)
 """
 from __future__ import annotations
 

@@ -8,9 +8,8 @@ hierarchies; fextrema reports per-comp min/max over valid (uncovered)
 cells.
 
 Everything runs in HOST numpy at the file's native precision (f64 FABs
-stay f64) on purpose: TPUs have no native f64 and jax would silently
-downcast, hiding exactly the 1e-9-relative drifts fcompare exists to
-catch.  The work is trivial; no device or jax involvement at all.
+stay f64) on purpose: jax without x64 would silently downcast to f32,
+hiding exactly the 1e-9-relative drifts fcompare exists to catch.  The work is trivial; no device or jax involvement at all.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """``grad`` — gradient + magnitude of a scalar on all AMR levels.
 
-TPU-native replacement for /root/reference/Src/grad.cpp (261 LoC): reads a
+JAX replacement for PeleAnalysis Src/grad.cpp (261 LoC): reads a
 plotfile variable (default ``temp``), computes the cell-centered gradient and
 its magnitude on every level, and writes a plotfile with components
 ``[gradVar, aux..., <var>_gx, <var>_gy, <var>_gz, ||grad<var>||]``
@@ -98,7 +98,7 @@ def compute_grad_dense(dstate, var: str,
 
     # cache the jitted pipeline ON the state AND across instances with the
     # same hierarchy (a closure jit re-traces per call; a fresh state per
-    # time-series plotfile re-traced per run — both measured r3)
+    # time-series plotfile would re-trace per run)
     from ..amr.dense import shared_engine
     cache = getattr(dstate, "_tool_fn_cache", None)
     if cache is None:

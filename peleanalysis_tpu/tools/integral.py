@@ -1,7 +1,7 @@
 """``integral`` — volume / plane / line integrals over the valid AMR
 hierarchy.
 
-TPU-native replacement for /root/reference/Src/integral.cpp (588 LoC):
+JAX replacement for PeleAnalysis Src/integral.cpp (588 LoC):
   * integralDimension=1: integrate along ``dir`` -> 2-D field over
     (dir1,dir2) at finest resolution (integrate1d, integral.cpp:13-72)
   * integralDimension=2: integrate over (dir1,dir2) -> 1-D profile along

@@ -1,6 +1,6 @@
 """``isosurface`` — marching-cubes isosurface of a plotfile variable -> MEF.
 
-TPU-native replacement for /root/reference/Src/isosurface.cpp (2269 LoC);
+JAX replacement for PeleAnalysis Src/isosurface.cpp (2269 LoC);
 the engine lives in peleanalysis_tpu/geom/marching_cubes.py.  CLI keys match
 isosurface.cpp:1295-1399,1894-2238: infile, isoCompName (default temp),
 isoVal, comps (extra node fields), finestLevel, is_per, writeSurf,

@@ -2,8 +2,8 @@
 field (/root/reference/Src/partStream.cpp + StreamPC.{H,cpp}).
 
 The reference reimplements streamlines with an AMReX ParticleContainer that
-Redistributes particles across ranks every step (StreamPC.cpp:86-141).  On
-TPU all lines stay resident in HBM, so the same engine as ``stream`` applies
+Redistributes particles across ranks every step (StreamPC.cpp:86-141).  Here
+all lines stay resident in device memory, so the same engine as ``stream`` applies
 (SURVEY.md §5 "resident-batch" note); seeding modes match partStream.cpp:8-119
 (oneSeedPerCell / isoFile / seedLoc / seedRake), stepping matches the per-step
 RK4 + ntrpv (StreamPC.cpp:143-259).  Output: Tecplot lines

@@ -1,6 +1,6 @@
 """``rmsVel`` — u' RMS per plotfile in a time series.
 
-TPU-native replacement for /root/reference/Src/rmsVel.cpp (142 LoC): reads
+JAX replacement for PeleAnalysis Src/rmsVel.cpp (142 LoC): reads
 x/y/z_velocity at the finest level only, accumulates volume-weighted <u> and
 <u^2> (rmsVel.cpp:82-116), writes "RmsVel.dat" rows of (time, urms) with
 urms = sqrt(mean over dims of (<u_d^2> - <u_d>^2)) (rmsVel.cpp:125-127).

@@ -1,6 +1,6 @@
 """``stream`` — streamlines from seed points through AMR fields.
 
-TPU-native replacement for /root/reference/Src/stream.cpp (2302 LoC) +
+JAX replacement for PeleAnalysis Src/stream.cpp (2302 LoC) +
 stream_nd.f90; the RK4 engine lives in peleanalysis_tpu/stream/trace.py.
 CLI keys follow stream.cpp:409-969: plotfile, seeds from isoFile (MEF) /
 seedLoc / seedRakeL+seedRakeR(+seedRakeNum), progressName (gradient tracing)
@@ -78,7 +78,7 @@ def main(args: dict) -> None:
     """CLI: stream plotfile= (isoFile=<MEF> | seedLoc=x y z |
     seedRakeL=.. seedRakeR=.. [seedRakeNum=10]) [progressName=temp |
     traceAlongV=1] [nRKsteps=51] [hRK=0.1] [aux_comps=...] [nGrow=]
-    [bounds=lo..hi..] [marchEngine=auto|pallas|xla]
+    [bounds=lo..hi..]
     [fetch_precision=auto|exact|compressed — auto is LOSSY when the march
     is bfloat16 and nRKsteps<=641: written stations are int16-delta
     quantized (drift <= nRKh*hRK/32000 cells) and sampled fields uint16
@@ -160,8 +160,9 @@ def main(args: dict) -> None:
     # itself runs bfloat16 — see stream/trace.py fetch_compress
     fcomp = {"exact": False, "compressed": True, "auto": None}[
         pp.query_str("fetch_precision", "auto")]
-    # marchPrecision=bfloat16 opts into the ~20%-faster lossy field march
-    # (~0.01 finest-cell path deviation); default full input precision
+    # marchPrecision=bfloat16 opts into the lossy field march (half the
+    # gathered bytes, ~0.01 finest-cell path deviation); default full input
+    # precision
     mdtype = pp.query_str("marchPrecision", None)
     with phase("stream integrate"):
         if sparse:
@@ -171,7 +172,6 @@ def main(args: dict) -> None:
                 trace_field=None if trace_along_v else progress_name,
                 sample_names=sample,
                 march_dtype=mdtype,
-                march_engine=pp.query_str("marchEngine", "auto"),
                 ngrow=pp.query_int("nGrow", None),
                 fetch_compress=fcomp)
         else:
@@ -180,7 +180,6 @@ def main(args: dict) -> None:
                 trace_field=None if trace_along_v else progress_name,
                 sample_names=sample,
                 march_dtype=mdtype,
-                march_engine=pp.query_str("marchEngine", "auto"),
                 ngrow=pp.query_int("nGrow", None),
                 fetch_compress=fcomp)
     if verbose:

@@ -1,11 +1,11 @@
 """``turbulenceSpectra`` — HIT kinetic-energy spectra and turbulence
 statistics.
 
-TPU-native replacement for the reference's Turbulence_analysis pipeline
+JAX replacement for the reference's Turbulence_analysis pipeline
 (/root/reference/Src/PythonScripts/Turbulence_analysis/: yt + FFTW2 +
 AmrDeriveSpectrum + AugmentPlotfile).  The whole chain collapses to: flatten
 the hierarchy to a uniform grid, 3-D FFT of the velocity on device
-(jnp.fft — runs on the TPU instead of FFTW/MPI), shell-binned E(k), plus the
+(jnp.fft — runs on the device instead of FFTW/MPI), shell-binned E(k), plus the
 time-series statistics (urms, TKE) the yt_post_scrape_tseries script
 collects.  Outputs: ``<out>_spectrum.dat`` rows of (k, E(k)) and
 ``<out>_stats.dat``.

@@ -13,7 +13,7 @@ import time
 from typing import Dict, List, Tuple
 
 _PHASES: List[Tuple[str, float]] = []
-VERBOSE = int(os.environ.get("PELE_TPU_VERBOSE", "0"))
+VERBOSE = int(os.environ.get("PELE_VERBOSE", "0"))
 
 
 @contextlib.contextmanager
@@ -53,3 +53,24 @@ def device_trace(logdir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def gpu_cards() -> str:
+    """``name, power.limit`` of each GPU, one line per card, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them.  Stays off JAX.  Raises RuntimeError where nvidia-smi is
+    missing or lists no card."""
+    import subprocess
+
+    try:
+        r = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise RuntimeError(f"nvidia-smi failed: {e}") from e
+    out = r.stdout.strip()
+    if r.returncode != 0 or not out:
+        raise RuntimeError(f"nvidia-smi lists no GPU (rc={r.returncode}): "
+                           f"{r.stderr.strip()}")
+    return out

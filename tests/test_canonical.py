@@ -1,8 +1,7 @@
 """Position-independent (canonical-frame) cluster engines (amr/canonical.py).
 
-The r3 sparse path compiled one engine PER CLUSTER because the graphs baked
-absolute positions (NOTES.md: scattered-512^3 cold isosurface 328 s).  These
-tests pin the r4 fix: equal-bucket interior clusters share ONE fingerprint
+A sparse path whose graphs bake absolute positions compiles one engine PER
+CLUSTER.  These tests pin the fix: equal-bucket interior clusters share ONE fingerprint
 (=> one compiled engine via amr/dense.shared_engine) and the results stay
 exactly equal to the global dense run.  Reference model: position-independent
 per-box kernels, /root/reference/Src/grad.cpp:160-163.
@@ -247,9 +246,9 @@ def test_boundary_cluster_pinned_curvature_exact():
                                   bx.hi[d] - rb.lo[d] + 1) for d in range(3))
                 a = np.asarray(out.data[1][co])[slw]
                 b = np.asarray(ref.data[1][ci])[slr]
-                f = np.isfinite(b)      # Kg is 0/0 where the gradient dies
-                scale = max(np.abs(b[f]).max(), 1e-30)
-                assert np.abs(a[f] - b[f]).max() / scale < 1e-12, name
+                assert np.isfinite(a).all() and np.isfinite(b).all(), name
+                scale = max(np.abs(b).max(), 1e-30)
+                assert np.abs(a - b).max() / scale < 1e-12, name
 
 
 def test_boundary_cluster_pinned_stream_exact():
@@ -265,10 +264,8 @@ def test_boundary_cluster_pinned_stream_exact():
         rng.uniform(0.03, 0.2, (8, 3)),
         0.5 + 0.06 * (rng.random((6, 3)) - 0.5)])
     ds = DenseAmrState.from_batched(st)
-    ref = trace_streamlines(ds, seeds, 15, 0.5, trace_field=None,
-                            march_engine="xla")
-    sp = trace_streamlines_sparse(st, seeds, 15, 0.5, trace_field=None,
-                                  march_engine="xla")
+    ref = trace_streamlines(ds, seeds, 15, 0.5, trace_field=None)
+    sp = trace_streamlines_sparse(st, seeds, 15, 0.5, trace_field=None)
     np.testing.assert_allclose(sp, ref, atol=1e-9)
 
 
@@ -299,8 +296,7 @@ def test_sparse_stream_seed_counts_bucketed(multi_cluster_state,
 
     monkeypatch.setattr(tr, "trace_streamlines", spy)
     sp = tr.trace_streamlines_sparse(st, seeds, 11, 0.5,
-                                     trace_field="blob",
-                                     march_engine="xla")
+                                     trace_field="blob")
     monkeypatch.undo()
     # every canonical-cluster march saw the SAME padded bucket (>= 64)
     cluster_counts = [c for c in calls if c >= 64 and (c & (c - 1)) == 0]
@@ -308,8 +304,7 @@ def test_sparse_stream_seed_counts_bucketed(multi_cluster_state,
     assert len(set(cluster_counts)) == 1, calls
     # and the padding is invisible in the result: dense parity
     ref = tr.trace_streamlines(DenseAmrState.from_batched(st), seeds, 11,
-                               0.5, trace_field="blob",
-                               march_engine="xla")
+                               0.5, trace_field="blob")
     np.testing.assert_allclose(sp, ref, atol=1e-9)
 
 
@@ -486,9 +481,8 @@ def test_canonical_2d_sparse_stream_exact(tmp_path):
         np.stack([rng.uniform(0.1, 0.9, 6),
                   rng.uniform(0.1, 0.9, 6)], axis=1)])
     ref = trace_streamlines(DenseAmrState.from_batched(st), seeds, 15, 0.5,
-                            trace_field="temp", march_engine="xla")
-    sp = trace_streamlines_sparse(st, seeds, 15, 0.5, trace_field="temp",
-                                  march_engine="xla")
+                            trace_field="temp")
+    sp = trace_streamlines_sparse(st, seeds, 15, 0.5, trace_field="temp")
     np.testing.assert_allclose(sp, ref, atol=1e-12)
 
 
@@ -640,7 +634,6 @@ def test_periodic_stream_through_wrap_window_matches_dense():
     seeds = np.array([[0.93, 0.48, 0.33], [0.90, 0.44, 0.31],
                       [0.91, 0.50, 0.35]])
     ref = trace_streamlines(DenseAmrState.from_batched(st), seeds, 13, 0.5,
-                            trace_field="temp", march_engine="xla")
-    sp = trace_streamlines_sparse(st, seeds, 13, 0.5, trace_field="temp",
-                                  march_engine="xla")
+                            trace_field="temp")
+    sp = trace_streamlines_sparse(st, seeds, 13, 0.5, trace_field="temp")
     np.testing.assert_allclose(sp, ref, atol=1e-9)

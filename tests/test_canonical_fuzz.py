@@ -158,9 +158,8 @@ def test_fuzz_sparse_stream_matches_dense(seed, ratio, n_levels):
         seeds.append(c + 0.02 * (rng.random((4, 3)) - 0.5))
     seeds = np.concatenate(seeds)
     ref = trace_streamlines(DenseAmrState.from_batched(st), seeds, 13, 0.5,
-                            trace_field="temp", march_engine="xla")
-    sp = trace_streamlines_sparse(st, seeds, 13, 0.5, trace_field="temp",
-                                  march_engine="xla")
+                            trace_field="temp")
+    sp = trace_streamlines_sparse(st, seeds, 13, 0.5, trace_field="temp")
     np.testing.assert_allclose(sp, ref, atol=1e-9)
 
 

@@ -1,6 +1,6 @@
 """Cluster-axis SPMD (parallel/cluster_shard.py): canonical clusters batched
 into one vmapped dispatch and sharded over a device mesh must reproduce the
-serial per-cluster path exactly — the TPU analog of the reference's
+serial per-cluster path exactly — the JAX analog of the reference's
 DistributionMapping box->rank ownership (grad.cpp:160-163)."""
 import numpy as np
 import pytest

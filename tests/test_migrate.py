@@ -91,8 +91,7 @@ def test_trace_streamlines_migrating_matches(mesh8, tmp_path):
         AmrState.from_plotfile(path, dtype=np.float64))
     rng = np.random.default_rng(1)
     seeds = np.stack([rng.uniform(0.2, 0.8, 24) for _ in range(3)], axis=1)
-    ref = trace_streamlines(ds, seeds, 21, 0.5, sample_names=("temp",),
-                            march_engine="xla")
+    ref = trace_streamlines(ds, seeds, 21, 0.5, sample_names=("temp",))
     got = trace_streamlines_migrating(ds, seeds, 21, 0.5, mesh8,
                                       sample_names=("temp",))
     assert got.shape == ref.shape

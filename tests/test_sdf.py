@@ -3,7 +3,7 @@ import pytest
 
 from peleanalysis_tpu.geom.sdf import (parity_sign, point_tri_distance,
                                        unsigned_distance_grid)
-from tests.test_mef_tools import make_sphere_mef
+from test_mef_tools import make_sphere_mef
 
 
 def test_point_tri_distance_regions():

@@ -285,7 +285,7 @@ def test_jpdf_conditioning_and_stoich(tmp_path, monkeypatch):
 
 
 def test_jpdf_minmax_uncovered_only_deviation(tmp_path):
-    """Documented deviation (docs/design.md, NOTES.md #10): the jpdf /
+    """Documented deviation (docs/design.md): the jpdf /
     conditionalMean auto min/max scan uses UNCOVERED cells only, where the
     reference scans the whole domain including fine-covered coarse cells
     (jpdf.cpp:296-326).  Pin it: a spike planted in a covered coarse cell

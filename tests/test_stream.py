@@ -394,73 +394,6 @@ def test_trace_float32_bf16_default(tmp_path):
     assert dev < 0.2 * dxf, f"bf16-march path deviates {dev/dxf:.2f} cells"
 
 
-def test_pallas_march_matches_xla(tmp_path):
-    """The Pallas DMA-resident-block march (stream/pallas_march.py) must
-    reproduce the XLA gather path (interpret mode on CPU; the real-TPU
-    3x-speedup parity is exercised by bench runs)."""
-    import jax.numpy as jnp
-    from peleanalysis_tpu.stream.pallas_march import march_pallas
-    from peleanalysis_tpu.stream.trace import _trace_level
-
-    rng = np.random.default_rng(1)
-    S = (24, 20, 90)   # SZ*C = 270 >= 256 lane minimum
-    xs = [np.linspace(0, 1, s) for s in S]
-    X, Y, Z = np.meshgrid(*xs, indexing="ij")
-    vec = jnp.asarray(np.stack([
-        -(Y - 0.5) + 0.05 * np.sin(6 * Z),
-        (X - 0.5) + 0.05 * np.cos(5 * Z),
-        0.1 * np.sin(4 * X)]), jnp.float32)
-    plo = np.zeros(3)
-    dx = np.array([1 / 23, 1 / 19, 1 / 89])
-    h = float(0.5 * dx.min())
-    n = 8
-    seeds = np.stack([0.35 + 0.3 * rng.random(n) for _ in range(3)], 1)
-    dirs = np.where(rng.random(n) > 0.5, 1.0, -1.0)
-    n_steps = 7    # spans two rounds (K = floor(3/h_cells) - 1)
-
-    pos_ref, _ = _trace_level(vec, vec, jnp.asarray(plo, jnp.float32),
-                              jnp.asarray(dx, jnp.float32),
-                              h, jnp.asarray(seeds, jnp.float32), n_steps,
-                              jnp.asarray(dirs, jnp.float32)[:, None])
-    pos_pal = march_pallas(vec, plo, dx, h, jnp.asarray(seeds), n_steps,
-                           jnp.asarray(dirs), L=8, interpret=True)
-    d = np.abs(np.asarray(pos_ref) - np.asarray(pos_pal))
-    assert d.max() < 1e-5, d.max()
-
-
-def test_pallas_march_boundary_parity():
-    """Lines marching to (and dying at) the volume edges must match the XLA
-    path — exercises the padded-field windows where block bases used to
-    clip (pallas_march.PADX/Y/Z)."""
-    import jax.numpy as jnp
-    from peleanalysis_tpu.stream.pallas_march import march_pallas
-    from peleanalysis_tpu.stream.trace import _trace_level
-
-    S = (16, 18, 88)
-    xs = [np.linspace(0, 1, s) for s in S]
-    X, Y, Z = np.meshgrid(*xs, indexing="ij")
-    # strong outward drift: lines exit through every face
-    vec = jnp.asarray(np.stack([X - 0.45, Y - 0.55, Z - 0.5]), jnp.float32)
-    plo = np.zeros(3)
-    dx = np.array([1 / 15, 1 / 17, 1 / 87])
-    h = float(0.5 * dx.min())
-    corners = [0.03, 0.5, 0.97]
-    seeds = np.array([[a, b, c] for a in corners for b in corners
-                      for c in corners][:24])
-    dirs = np.where(np.arange(24) % 2 == 0, 1.0, -1.0)
-    n_steps = 60   # long enough that most lines hit the boundary and freeze
-
-    pos_ref, _ = _trace_level(vec, vec, jnp.asarray(plo, jnp.float32),
-                              jnp.asarray(dx, jnp.float32), h,
-                              jnp.asarray(seeds, jnp.float32), n_steps,
-                              jnp.asarray(dirs, jnp.float32)[:, None])
-    pos_pal = march_pallas(vec, plo, dx, h, jnp.asarray(seeds), n_steps,
-                           jnp.asarray(dirs), L=8, interpret=True)
-    d = np.abs(np.asarray(pos_ref) - np.asarray(pos_pal))
-    assert np.isfinite(np.asarray(pos_pal)).all()
-    assert d.max() < 1e-5, d.max()
-
-
 def test_fetch_compress_roundtrip(tmp_path):
     """Compressed line fetch (int16 station deltas) reconstructs paths to
     within n_half*h/64000 of the exact payload, and the exact path is the
@@ -493,36 +426,6 @@ def test_fetch_compress_roundtrip(tmp_path):
                                atol=1e-6)
     # the drift is ~50x below the accepted bf16-march deviation (0.01 cell)
     assert bound < 0.01 * ds.meta.geoms[-1].dx[0]
-
-
-def test_pallas_march_bf16_blocks(tmp_path):
-    """bf16 resident blocks (the default when the march is lossy) stay
-    within the accepted bf16-march deviation of the f32 blocks."""
-    import jax.numpy as jnp
-    from peleanalysis_tpu.stream.pallas_march import march_pallas
-    rng = np.random.default_rng(2)
-    S = (24, 20, 90)
-    xs = [np.linspace(0, 1, s) for s in S]
-    X, Y, Z = np.meshgrid(*xs, indexing="ij")
-    vec = jnp.asarray(np.stack([
-        -(Y - 0.5) + 0.05 * np.sin(6 * Z),
-        (X - 0.5) + 0.05 * np.cos(5 * Z),
-        0.1 * np.sin(4 * X)]), jnp.float32)
-    plo = np.zeros(3)
-    dx = np.array([1 / 23, 1 / 19, 1 / 89])
-    h = float(0.5 * dx.min())
-    n = 8
-    seeds = np.stack([0.35 + 0.3 * rng.random(n) for _ in range(3)], 1)
-    dirs = np.where(rng.random(n) > 0.5, 1.0, -1.0)
-    f32 = march_pallas(vec, plo, dx, h, jnp.asarray(seeds), 9,
-                       jnp.asarray(dirs), L=8, interpret=True)
-    b16 = march_pallas(vec, plo, dx, h, jnp.asarray(seeds), 9,
-                       jnp.asarray(dirs), L=8, interpret=True,
-                       block_dtype=jnp.bfloat16)
-    d = np.abs(np.asarray(f32) - np.asarray(b16)).max()
-    # same acceptance bound as the XLA bf16 default (~0.01 finest cell/step
-    # accumulated); dx.min()=1/89
-    assert d < 0.2 * dx.min(), d
 
 
 def test_fetch_compress_sampled_fields_roundtrip(tmp_path):
